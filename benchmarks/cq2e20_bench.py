@@ -43,10 +43,8 @@ PINNED_S = 0x1c92f8d51a2f3b7e9d0c5a6b4e8f7210fedcba9876543210123456789abcdef1
 
 
 def _cache_dir():
-    d = os.path.expanduser(
-        os.environ.get("SHA2CQ_CACHE", "~/.cache/sha2cq_jax"))
-    os.makedirs(d, exist_ok=True)
-    return d
+    from sha2cq_tpu import data_cache_dir
+    return data_cache_dir()
 
 
 def _cached(tag, build, progress=True):

@@ -1,7 +1,8 @@
-"""Prover scaling benchmark: host vs device (TPU) h-path at larger k.
+"""Prover scaling benchmark: host vs device h-path at larger k.
 
 Synthetic circuit: one multiplication gate + a dynamic range lookup filling
-all usable rows — the evaluate_h/NTT-bound regime where the TPU path engages.
+all usable rows — the evaluate_h/NTT-bound regime where the device path
+engages.
 
 Usage: python benchmarks/prove_bench.py [k] [rows_log2]
 """

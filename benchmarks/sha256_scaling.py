@@ -27,6 +27,7 @@ from sha2cq_tpu.models.sha.tables32 import SCHEME32
 from sha2cq_tpu.plonk import create_proof, keygen_pk, keygen_vk, verify_proof
 from sha2cq_tpu.poly.kzg.params import ParamsKZG
 from sha2cq_tpu.poly.kzg.strategy import AccumulatorStrategy
+from sha2cq_tpu.plonk.prover import default_h_device
 from sha2cq_tpu.utils.transcript import Blake2bRead
 
 PINNED_S = 0x2b068e00660fd714ab61695867925740388c0d300215adf8c964f5d93e9a76e7
@@ -35,7 +36,7 @@ PINNED_S = 0x2b068e00660fd714ab61695867925740388c0d300215adf8c964f5d93e9a76e7
 def main():
     k = int(sys.argv[1]) if len(sys.argv) > 1 else 13
     blocks_list = [int(b) for b in sys.argv[2:]] or [1, 16, 64]
-    h_dev = os.environ.get("SHA2CQ_H_DEVICE", "1") == "1"
+    h_dev = default_h_device()
 
     t0 = time.time()
     tables, configs, b0s, _ = build_sha256_setup(SCHEME32, 1 << k, PINNED_S)

@@ -3,7 +3,7 @@
  * The reference's math core is Rust with inline x86-64 asm
  * (arithmetic/curves/src/{derive/field.rs, bn256/assembly.rs}); this is the
  * framework's native counterpart for the host-side work that doesn't belong
- * on the TPU: SRS generation, Feist-Khovratovich table preprocessing chains,
+ * on the accelerator: SRS generation, Feist-Khovratovich table preprocessing chains,
  * small commitment MSMs, and verifier-side folds.  4x64-bit Montgomery
  * arithmetic over Fq with __int128 products; Jacobian point ops; Pippenger
  * MSM.  Exposed through a tiny C ABI consumed via ctypes

@@ -1,4 +1,4 @@
-"""Device (TPU) G1 point arithmetic: branch-free Jacobian ops over Fq limbs.
+"""Device G1 point arithmetic: branch-free Jacobian ops over Fq limbs.
 
 The reference's G1 ops are the `new_curve_impl!` macro's scalar Rust
 (arithmetic/curves/src/derive/curve.rs); here a *batch of points* is three
@@ -9,8 +9,8 @@ as XLA requires.
 Compile-size design: a unified add needs ~30 Fq products, but tracing 30
 separate mont_mul bodies makes XLA choke (the MSM scan networks instantiate
 this combiner many times).  Independent products are therefore *stacked* into
-6 rounds of one batched mont_mul each — same FLOPs, 5x smaller HLO, and the
-wider batch is exactly what the VPU wants.
+6 rounds of one batched mont_mul each — same FLOPs, 5x smaller HLO, and a
+wider batch per kernel.
 
 Used by the Pippenger MSM (ops/msm.py) whose inner reductions instantiate
 this add as the combiner of log-depth scan networks.

@@ -10,7 +10,8 @@ Capability parity with the reference:
     (arithmetic/curves/src/batch_pairing.rs:7-95)
 
 This module is the verifier-side oracle.  Group arithmetic the *prover* needs
-in bulk (MSM over G1) runs on the TPU (`ops/msm.py`); single-point host ops
+in bulk (MSM over G1) runs in `ops/msm.py` (native Pippenger, or the device
+window-sum kernel); single-point host ops
 here use Python ints (no Montgomery form).
 """
 from __future__ import annotations
@@ -226,7 +227,7 @@ def g1_mul(pt: G1Affine, k: int) -> G1Affine:
 
 
 def g1_msm(scalars: Sequence[int], points: Sequence[G1Affine]) -> G1Affine:
-    """Naive host MSM — oracle for the TPU Pippenger in ops/msm.py."""
+    """Naive host MSM — oracle for the Pippenger kernels in ops/msm.py."""
     acc = JAC_IDENTITY
     for s, pt in zip(scalars, points):
         acc = jac_add(acc, jac_mul(jac_from_affine(pt), s))

@@ -195,7 +195,7 @@ def from_bytes(b: bytes) -> Optional[Affine]:
 # ---------------------------- device contexts -------------------------------
 
 def device_ctxs():
-    """16x16-bit-limb Montgomery contexts for the TPU kernels (lazy: the
+    """16x16-bit-limb Montgomery contexts for the device kernels (lazy: the
     fields.device import pulls in jax)."""
     from ..fields.device import FieldCtx
     return FieldCtx.make(FP_MOD, "SecpFp"), FieldCtx.make(FQ_MOD, "SecpFq")

@@ -2,7 +2,7 @@
 
 This is the *oracle and verifier* layer of the framework: verification is
 O(proof size) and inherently sequential (one multi-Miller loop), so it lives
-on the host; the TPU (JAX/Pallas) layer in `fields/device.py` carries the
+on the host; the device (JAX) layer in `fields/device.py` carries the
 prover's bulk arithmetic and is tested bit-exactly against this module.
 
 Capability parity with the reference:
@@ -11,7 +11,7 @@ Capability parity with the reference:
     Fq12 = Fq6[w]/(w^2 - v)                (reference: bn256/{fq2,fq6,fq12}.rs)
   - constants: 2-adicity roots of unity, ZETA, DELTA, etc. (fr.rs:28-60)
 
-Design note (TPU-first): host fields are plain Python ints mod p — no
+Design note: host fields are plain Python ints mod p — no
 Montgomery form is needed off-device.  Montgomery limb representation only
 exists on the device side where the hardware (no 64-bit multiply) demands it.
 """

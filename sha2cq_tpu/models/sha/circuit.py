@@ -2,7 +2,7 @@
 
 (Reference state: sha/src/tables.rs has the table generators and
 halo2_proofs has the CQ argument, but no circuit wires them together —
-SURVEY.md §1-L5.  This module is that circuit, built TPU-side-by-design:
+SURVEY.md §1-L5.  This module is that circuit, built lookup-first:
 every bitwise op is ONE CQ vector lookup, all additions are field sums
 reduced through decomposition-table lookups, and the whole compression is
 64 rows + 4 shift rows.)

@@ -67,9 +67,9 @@ def build_sha_setup(l: Limbs, circuit_n: int, s: int, cache: bool = True):
 
     static_tables: short-name -> {component -> StaticTable} for the circuit.
 
-    With cache=True the whole preprocessed bundle is pickled under
-    ~/.cache/sha2cq_jax keyed by (limb scheme, circuit size, toxic-waste
-    hash): the 16-bit-scheme FK preprocessing is minutes of one-time native
+    With cache=True the whole preprocessed bundle is pickled under the
+    data cache (sha2cq_tpu.data_cache_dir) keyed by (limb scheme, circuit
+    size, toxic-waste hash): the 16-bit-scheme FK preprocessing is minutes of one-time native
     compute that every prover run should not repay.  (The cache holds
     test/toxic-waste setups; a production ceremony would ship these as
     artifacts through utils/keyio.)
@@ -80,9 +80,8 @@ def build_sha_setup(l: Limbs, circuit_n: int, s: int, cache: bool = True):
 
     cache_path = None
     if cache:
-        cache_dir = os.path.expanduser(
-            os.environ.get("SHA2CQ_CACHE", "~/.cache/sha2cq_jax"))
-        os.makedirs(cache_dir, exist_ok=True)
+        from ... import data_cache_dir
+        cache_dir = data_cache_dir()
         tag = f"sha_setup_{l.first}_{l.second}_{circuit_n}_{s % P:x}"
         cache_path = os.path.join(
             cache_dir, hashlib.sha256(tag.encode()).hexdigest()[:24] + ".pkl")

@@ -12,6 +12,7 @@ import os
 import pickle
 from typing import Dict
 
+from ... import data_cache_dir
 from ...fields import host as H
 from ...plonk.static_tables import StaticTable, StaticTableValues
 from ...poly.kzg.params import TableSRS
@@ -21,16 +22,9 @@ from .tables32 import HalfScheme, build_all_columns
 P = H.FR_MOD
 
 
-def _cache_dir() -> str:
-    d = os.path.expanduser(
-        os.environ.get("SHA2CQ_CACHE", "~/.cache/sha2cq_jax"))
-    os.makedirs(d, exist_ok=True)
-    return d
-
-
 def _cache_file(tag: str) -> str:
     return os.path.join(
-        _cache_dir(), hashlib.sha256(tag.encode()).hexdigest()[:24] + ".pkl")
+        data_cache_dir(), hashlib.sha256(tag.encode()).hexdigest()[:24] + ".pkl")
 
 
 def _load_srs(srs_len: int, secret: int, cache: bool, progress: bool):
@@ -67,6 +61,12 @@ def build_sha256_setup(s: HalfScheme, circuit_n: int, secret: int,
     specs = build_all_columns(s)
     max_size = max(len(next(iter(c.values()))) for c in specs.values())
     srs_len = max(max_size, circuit_n)
+    if progress:
+        from collections import Counter
+        rows = Counter(len(v) for c in specs.values() for v in c.values())
+        print(f"  {sum(rows.values())} table columns: "
+              + ", ".join(f"{m} of {r} rows" for r, m in sorted(rows.items())),
+              flush=True)
     srs = _load_srs(srs_len, secret, cache, progress)
 
     # per-table checkpointing: each preprocessed column is cached on its own,
@@ -79,7 +79,7 @@ def build_sha256_setup(s: HalfScheme, circuit_n: int, secret: int,
     tdir = None
     if cache_path:
         tdir = os.path.join(
-            _cache_dir(),
+            data_cache_dir(),
             f"sha256_tables_{s.word_bits}_{srs_len}_{secret % P:x}")
         os.makedirs(tdir, exist_ok=True)
 

@@ -1,8 +1,9 @@
-"""Multi-scalar multiplication (Pippenger) on TPU.
+"""Multi-scalar multiplication (Pippenger): native host kernel and a device
+window-sum kernel.
 
 The reference `best_multiexp` (halo2_proofs/src/arithmetic.rs:13-159) is a
-per-thread serial Pippenger with scatter-into-buckets — a shape TPUs can't
-run.  The TPU-native redesign:
+per-thread serial Pippenger with scatter-into-buckets.  The device redesign
+is branch-free and sort-based:
 
   window digits (c = 16, one per scalar limb)
     -> per window (sequential lax.map, so one compiled body):
@@ -33,23 +34,14 @@ from ..fields import device as D
 from ..fields import host as H
 from ..fields.device import FQ, NLIMB, U32
 
-# Below this size the host (native C / OpenMP) Pippenger beats the device.
-# Round-2 measurements settled WHY: v5e has no native 32-bit integer
-# multiply — the VPU runs uint32 mul+add at ~300 Gop/s (emulated), giving
-# ~45 M Montgomery muls/s, so a fused-scan device MSM lands at 0.57 s /
-# 3.0 s for 2^12 / 2^14 vs 0.12 s / 0.36 s on the 4-core native Pippenger
-# (benchmarks/msm_bench.py).  Pippenger is integer-multiply bound and has
-# no matmul shape, so it cannot ride the MXU the way the NTT does
-# (ops/mxu_ntt.py); commitments therefore run on the native host layer of
-# the framework by design, and the TPU carries the MXU-shaped work
-# (basis conversions, h evaluation).  msm_device stays available for
-# benchmarking and for future mesh-sharded table preprocessing.
-# Round-5 closure (benchmarks/mxu_montmul_probe.py on the chip, BASELINE.md):
-# the per-lane Toeplitz dot_general formulation of the PAIRWISE Montgomery
-# multiply measured 75.5 Mmul/s vs 44.9 on the VPU — 1.68x, far under the
-# >=4x rebuild threshold (the shared-operand contrast hit 587 Mmul/s, but
-# point adds have no shared contraction operand) — so a device point-add
-# cannot be made MXU-shaped and the host-native MSM split is permanent.
+# Below this size msm() uses the host (native C / OpenMP) Pippenger.  The
+# split was set on an earlier accelerator that lacked a native 32-bit
+# integer multiply; Pippenger is integer-multiply bound and has no matmul
+# shape, so commitments ran on the native host layer and the device carried
+# the matmul-shaped work (basis conversions, h evaluation).  The H100
+# multiplies integers natively, so the threshold is open for re-measurement
+# (ROADMAP speed item 2); msm_device is checked against the native
+# Pippenger on the card by chip_smoke.py.
 HOST_THRESHOLD = 1 << 20
 
 
@@ -293,25 +285,26 @@ def msm_device(scalars: Sequence[int], points, digits: Optional[np.ndarray] = No
         sums = _window_sums_v2(points, jnp.asarray(digits), n + pad, c, block)
     else:
         sums = _window_sums(points, jnp.asarray(digits), n, c)
-    sums = np.asarray(jax.device_get(sums))  # (nw, 3, 16)
+    return fold_window_sums(sums, c)
+
+
+def fold_window_sums(sums, c: int) -> CH.G1Affine:
+    """Host fold of per-window Jacobian sums S_w — (nw, 3, 16) Montgomery Fq
+    limbs, window 0 least significant — into sum_w 2^{c*w} S_w (affine)."""
+    sums = np.asarray(jax.device_get(sums))
+    rinv = pow(FQ.r, FQ.p - 2, FQ.p)
     total = None
-    from ..fields.host import FQ_MOD, inv_mod
-    for w in range(nw - 1, -1, -1):
-        limbs = sums[w]
-        x = sum(int(limbs[0][i]) << (16 * i) for i in range(NLIMB))
-        y = sum(int(limbs[1][i]) << (16 * i) for i in range(NLIMB))
-        z = sum(int(limbs[2][i]) << (16 * i) for i in range(NLIMB))
-        # Montgomery -> standard
-        rinv = pow(FQ.r, FQ.p - 2, FQ.p)
-        x, y, z = (x * rinv % FQ.p, y * rinv % FQ.p, z * rinv % FQ.p)
+    for w in range(sums.shape[0] - 1, -1, -1):
+        x, y, z = (sum(int(sums[w][j][i]) << (16 * i)
+                       for i in range(NLIMB)) * rinv % FQ.p
+                   for j in range(3))
         if total is not None:
             for _ in range(c):
                 total = CH.g1_add(total, total)
         if z != 0:
-            zi = inv_mod(z, FQ_MOD)
-            zi2 = zi * zi % FQ_MOD
-            pt = (x * zi2 % FQ_MOD, y * zi2 * zi % FQ_MOD)
-            total = CH.g1_add(total, pt)
+            zi = H.inv_mod(z, FQ.p)
+            zi2 = zi * zi % FQ.p
+            total = CH.g1_add(total, (x * zi2 % FQ.p, y * zi2 * zi % FQ.p))
     return total
 
 
@@ -363,7 +356,7 @@ def msm_host(scalars: Sequence[int], points, packed=None) -> CH.G1Affine:
 
 
 def msm(scalars: Sequence[int], points, packed=None) -> CH.G1Affine:
-    """Dispatch: tiny MSMs on host, big ones on the TPU."""
+    """Dispatch: MSMs below HOST_THRESHOLD on host, larger ones on the device."""
     if len(scalars) < HOST_THRESHOLD:
         return msm_host(scalars, points, packed=packed)
     return msm_device(scalars, points)
@@ -405,9 +398,8 @@ def _packed_basis_disk(points):
     n = len(points)
     sample = [points[(i * (n - 1)) // 15] for i in range(16)]
     key = hashlib.sha256(repr((n, sample)).encode()).hexdigest()[:20]
-    cache_dir = os.path.expanduser(
-        os.environ.get("SHA2CQ_CACHE", "~/.cache/sha2cq_jax"))
-    path = os.path.join(cache_dir, f"packedbasis_{key}.bin")
+    from .. import data_cache_dir
+    path = os.path.join(data_cache_dir(), f"packedbasis_{key}.bin")
     try:
         if os.path.exists(path):
             with open(path, "rb") as f:
@@ -419,7 +411,6 @@ def _packed_basis_disk(points):
     packed = pack_points_affine(points)
     if packed is not None:
         try:
-            os.makedirs(cache_dir, exist_ok=True)
             with open(path + ".tmp", "wb") as f:
                 f.write(bytes(packed))
             os.replace(path + ".tmp", path)

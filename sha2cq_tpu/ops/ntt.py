@@ -6,12 +6,9 @@ stages; with input interpreted as coefficients the output is evaluations at
 the n powers of omega in natural order.  Inverse = same transform with
 omega^{-1} plus a final scale by n^{-1} (domain.rs:366-374).
 
-TPU mapping: the per-stage pair/twiddle indices are computed arithmetically
-from a broadcast iota (no index tables), each stage is two gathers, one
-Montgomery multiply, add/sub, and two scatters over the whole (16, n) limb
-array; the stage loop is a `lax.fori_loop`, so the compiled program is one
-butterfly body regardless of n.  Multi-chip scaling shards the batch axis
-(see parallel/).
+Device mapping: one bit-reversal gather, then k identical constant-geometry
+stages (one Montgomery multiply, add/sub over the whole limb array) in one
+loop.  Multi-device scaling shards the batch axis (see parallel/).
 """
 from __future__ import annotations
 
@@ -62,70 +59,47 @@ def twiddle_table(omega: int, k: int, p_name: str = "Fr") -> jnp.ndarray:
 
 
 @functools.partial(jax.jit, static_argnums=(2,))
-def _ntt_core(a: jnp.ndarray, twiddles: jnp.ndarray, k: int) -> jnp.ndarray:
-    """Iterative DIT butterflies as pure reshape/slice arithmetic.
+def ntt_last_axis(a: jnp.ndarray, twiddles: jnp.ndarray, k: int) -> jnp.ndarray:
+    """Radix-2 DIT NTT along the last axis of a (16, ..., n) limb array.
 
-    After the (single) bit-reversal gather, every stage's pair structure is
-    regular: viewing the array as (16, n/2^{s+1}, 2, 2^s), the butterfly is
-    a slice-multiply-add with a strided twiddle slice — no gathers or
-    scatters, which is what the VPU wants.  Stages are Python-unrolled, so
-    each has static shapes; the whole trace is ~k fused elementwise blocks.
+    Constant-geometry form: after the single bit-reversal gather, every
+    stage reads the pairs at (2j, 2j+1) and writes them to (j, j + n/2), so
+    all k stages have one shape and run as ONE lax.fori_loop body.  (With
+    the stages unrolled, XLA:GPU compiled a 2^13 transform for over three
+    minutes.)  The data layout at stage s is the natural DIT order rotated
+    right by s bits, so the pair at j takes the twiddle omega^e with
+    e = j with its low k-1-s bits cleared; after k stages the rotation is
+    the identity and the output is in natural order.
     """
     n = 1 << k
-    perm = jnp.asarray(_bitrev_perm(k))
-    a = jnp.take(a, perm, axis=1)
+    a = jnp.take(a, jnp.asarray(_bitrev_perm(k)), axis=-1)
     if n == 1:
         return a
+    lead = a.shape[:-1]
+    j = jnp.arange(n // 2, dtype=jnp.int32)
+    tw_shape = (NLIMB,) + (1,) * (a.ndim - 2) + (n // 2,)
 
-    for s in range(k):
-        half = 1 << s                # butterflies per block
-        blocks = n >> (s + 1)
-        stride = 1 << (k - 1 - s)
-        tw = twiddles[:, ::stride].reshape(NLIMB, 1, half)
-        v = a.reshape(NLIMB, blocks, 2, half)
-        top = v[:, :, 0, :]
-        bot = v[:, :, 1, :]
+    def stage(s, x):
+        v = x.reshape(*lead, n // 2, 2)
+        top, bot = v[..., 0], v[..., 1]
+        low = jnp.int32(k - 1) - s
+        tw = jnp.take(twiddles, (j >> low) << low, axis=1).reshape(tw_shape)
         t = D.mont_mul(bot, tw, FR)
-        a = jnp.stack([D.add(top, t, FR), D.sub(top, t, FR)], axis=2) \
-            .reshape(NLIMB, n)
-    return a
+        return jnp.concatenate([D.add(top, t, FR), D.sub(top, t, FR)], axis=-1)
+
+    return jax.lax.fori_loop(0, k, stage, a)
 
 
 def ntt(a: jnp.ndarray, omega: int, k: int) -> jnp.ndarray:
     """Forward NTT of a (16, n) Montgomery-limb array: coeffs -> evals."""
-    return _ntt_core(a, twiddle_table(omega, k), k)
+    return ntt_last_axis(a, twiddle_table(omega, k), k)
 
 
 def intt(a: jnp.ndarray, omega_inv: int, k: int, divisor_inv: int) -> jnp.ndarray:
     """Inverse NTT: evals -> coeffs (scaled by 1/n, passed as divisor_inv)."""
-    out = _ntt_core(a, twiddle_table(omega_inv, k), k)
+    out = ntt_last_axis(a, twiddle_table(omega_inv, k), k)
     d = D.pack_scalar(divisor_inv, FR).reshape(NLIMB, 1)
     return D.mont_mul(out, d, FR)
-
-
-@functools.partial(jax.jit, static_argnums=(2,))
-def ntt_last_axis(a: jnp.ndarray, twiddles: jnp.ndarray, k: int) -> jnp.ndarray:
-    """Radix-2 NTT along the last axis of a (16, ..., n) limb array —
-    the batched form used for whole-column-set basis conversions."""
-    n = 1 << k
-    perm = jnp.asarray(_bitrev_perm(k))
-    a = jnp.take(a, perm, axis=-1)
-    if n == 1:
-        return a
-    lead = a.shape[:-1]
-    for s in range(k):
-        half = 1 << s
-        blocks = n >> (s + 1)
-        stride = 1 << (k - 1 - s)
-        tw = twiddles[:, ::stride].reshape(
-            (NLIMB,) + (1,) * (a.ndim - 2) + (1, half))
-        v = a.reshape(*lead, blocks, 2, half)
-        top = v[..., 0, :]
-        bot = v[..., 1, :]
-        t = D.mont_mul(bot, tw, FR)
-        a = jnp.stack([D.add(top, t, FR), D.sub(top, t, FR)], axis=-2) \
-            .reshape(*lead, n)
-    return a
 
 
 # ----------------------------- host reference -------------------------------

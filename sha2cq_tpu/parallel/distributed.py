@@ -1,8 +1,9 @@
 """Multi-chip distribution of the prover's bulk kernels.
 
 The reference's entire parallel runtime is a rayon re-export
-(halo2_proofs/src/multicore.rs:1-5).  The TPU-native equivalent (SURVEY.md
-§2.4) distributes over a jax.sharding Mesh with XLA collectives riding ICI:
+(halo2_proofs/src/multicore.rs:1-5).  The device equivalent (SURVEY.md
+§2.4) distributes over a jax.sharding Mesh with XLA collectives (NCCL on
+GPUs):
 
   - NTT: four-step decomposition n = R x C — local size-R NTTs on the
     sharded column axis, pointwise twiddles, an all_to_all "transpose" that
@@ -16,8 +17,8 @@ The reference's entire parallel runtime is a rayon re-export
     over the sharded extended domain; rotations become collective permutes
     only at shard boundaries.
 
-Everything is expressed with shard_map so the same kernels run on one chip,
-an 8-device CPU mesh (tests), or a v5e slice unchanged.
+Everything is expressed with shard_map so the same kernels run on one
+device, an 8-device CPU mesh (tests), or several GPUs unchanged.
 """
 from __future__ import annotations
 
@@ -43,41 +44,16 @@ def default_mesh(n_devices: int = None) -> Mesh:
 
 
 def mesh_2d(hosts: int, chips: int) -> Mesh:
-    """Two-level mesh for multi-host topologies: axis "y" = hosts (DCN),
-    axis "x" = chips within a host (ICI).  Shardings that flatten ("y","x")
-    keep neighbor traffic (e.g. the h-VM halo exchanges) on ICI except at
-    host boundaries, matching SURVEY §2.4's multi-node row."""
+    """Two-level mesh for multi-host topologies: axis "y" = hosts (the
+    network between hosts), axis "x" = devices within a host (the fast
+    intra-host links).  Shardings that flatten ("y","x") keep neighbor
+    traffic (e.g. the h-VM halo exchanges) inside a host except at host
+    boundaries, matching SURVEY §2.4's multi-node row."""
     devs = jax.devices()[: hosts * chips]
     return Mesh(np.array(devs).reshape(hosts, chips), axis_names=("y", "x"))
 
 
 # ------------------------- distributed four-step NTT ------------------------
-
-def _ntt_last_axis(a: jnp.ndarray, twiddles: jnp.ndarray, k: int) -> jnp.ndarray:
-    """Radix-2 NTT along the last axis of a (16, ..., n) limb array."""
-    n = 1 << k
-    perm = jnp.asarray(NTT._bitrev_perm(k))
-    a = jnp.take(a, perm, axis=-1)
-    if n == 1:
-        return a
-    j = jnp.arange(n // 2, dtype=jnp.int32)
-    bshape = (1,) * (a.ndim - 2)
-
-    def stage(s, x):
-        half_mask = (jnp.int32(1) << s) - 1
-        idx_top = ((j >> s) << (s + 1)) | (j & half_mask)
-        idx_bot = idx_top | (jnp.int32(1) << s)
-        tw_idx = (j & half_mask) << (jnp.int32(k) - 1 - s)
-        tw = jnp.take(twiddles, tw_idx, axis=1).reshape(NLIMB, *bshape, n // 2)
-        top = jnp.take(x, idx_top, axis=-1)
-        bot = jnp.take(x, idx_bot, axis=-1)
-        t = D.mont_mul(bot, tw, FR)
-        x = x.at[..., idx_top].set(D.add(top, t, FR))
-        x = x.at[..., idx_bot].set(D.sub(top, t, FR))
-        return x
-
-    return jax.lax.fori_loop(0, k, stage, a)
-
 
 @functools.lru_cache(maxsize=32)
 def _ntt_step_jit(mesh: Mesh, kr: int, kc: int):
@@ -92,7 +68,7 @@ def _ntt_step_jit(mesh: Mesh, kr: int, kc: int):
         # m_local: (16, R, C/ndev)
         # 1) local NTT_R along r: move r to last axis
         s = jnp.moveaxis(m_local, 1, 2)              # (16, C/d, R)
-        s = _ntt_last_axis(s, tw_r, kr)
+        s = NTT.ntt_last_axis(s, tw_r, kr)
         s = jnp.moveaxis(s, 2, 1)                    # (16, R, C/d) : S[k1, c]
         # 2) twiddle
         t = D.mont_mul(s, tw_local, FR)
@@ -100,7 +76,7 @@ def _ntt_step_jit(mesh: Mesh, kr: int, kc: int):
         #    chunks and concatenates the c chunks
         u = jax.lax.all_to_all(t, "x", split_axis=1, concat_axis=2, tiled=True)
         # u: (16, R/d, C) : T[k1 block, all c]
-        u = _ntt_last_axis(u, tw_c, kc)              # DFT over c: U[k1, k2]
+        u = NTT.ntt_last_axis(u, tw_c, kc)              # DFT over c: U[k1, k2]
         return u
 
     spec_in = P_(None, None, "x")

@@ -405,9 +405,8 @@ def _opening_basis_from_window(window, n, tag):
     key = hashlib.sha256(
         repr((tag, n, window[0], window[1], window[n - 2])).encode()
     ).hexdigest()[:20]
-    cache_dir = os.path.expanduser(
-        os.environ.get("SHA2CQ_CACHE", "~/.cache/sha2cq_jax"))
-    path = os.path.join(cache_dir, f"openbasis_{key}.pkl")
+    from .. import data_cache_dir
+    path = os.path.join(data_cache_dir(), f"openbasis_{key}.pkl")
     try:
         if os.path.exists(path):
             with open(path, "rb") as f:
@@ -420,7 +419,6 @@ def _opening_basis_from_window(window, n, tag):
     out = _group_ntt_any(jac, omega_inv, k)
     pts = CH.jac_batch_to_affine(out)
     try:
-        os.makedirs(cache_dir, exist_ok=True)
         with open(path + ".tmp", "wb") as f:
             pickle.dump(pts, f, protocol=4)
         os.replace(path + ".tmp", path)

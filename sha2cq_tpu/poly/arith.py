@@ -1,6 +1,6 @@
 """Host polynomial arithmetic helpers (reference halo2_proofs/src/arithmetic.rs).
 
-These are O(n) or O(n log n) scalar-side helpers that sit off the TPU hot
+These are O(n) or O(n log n) scalar-side helpers that sit off the device hot
 path (the bulk NTT/MSM work lives in ops/); kept as int-list functions so the
 protocol layers can run/verify with no device round-trips for small circuits.
 

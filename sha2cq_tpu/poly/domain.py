@@ -10,7 +10,7 @@ Mirrors the reference's `EvaluationDomain` (halo2_proofs/src/poly/domain.rs:
     divide_by_vanishing_poly / rotate_extended / l_i_range / rotate_omega
     (domain.rs:238-478)
 
-TPU design: scalar constants are host ints; polynomial payloads are
+Device design: scalar constants are host ints; polynomial payloads are
 (16, n) Montgomery-limb device arrays and every transform is a jitted NTT
 (ops/ntt.py) plus fused elementwise limb ops.  A host (Python int list)
 path is kept for small/verifier-side work and as the test oracle.
@@ -106,7 +106,7 @@ class EvaluationDomain:
     # ---------------- device ((16, n) limb array) paths ---------------------
 
     def lagrange_to_coeff(self, values: jnp.ndarray) -> jnp.ndarray:
-        out = NTT._ntt_core(values, NTT.twiddle_table(self.omega_inv, self.k), self.k)
+        out = NTT.ntt_last_axis(values, NTT.twiddle_table(self.omega_inv, self.k), self.k)
         return D.mont_mul(out, self._const(self.ifft_divisor), D.FR)
 
     def coeff_to_lagrange(self, coeffs: jnp.ndarray) -> jnp.ndarray:
@@ -119,7 +119,7 @@ class EvaluationDomain:
         return NTT.ntt(a, self.extended_omega, self.extended_k)
 
     def extended_to_coeff(self, values: jnp.ndarray) -> jnp.ndarray:
-        a = NTT._ntt_core(
+        a = NTT.ntt_last_axis(
             values, NTT.twiddle_table(self.extended_omega_inv, self.extended_k), self.extended_k
         )
         a = D.mont_mul(a, self._const(self.extended_ifft_divisor), D.FR)

@@ -11,7 +11,7 @@ Mirrors reference poly/kzg/commitment.rs:
                                                                  (156-170)
 
 commit/commit_lagrange dispatch through ops/msm.py: host Pippenger for tiny
-commitments, TPU Pippenger for bulk ones.  Production-grade SRS generation at
+commitments, device Pippenger for bulk ones.  Production-grade SRS generation at
 2^20+ runs the power chains on device (vectorized double-and-add).
 """
 from __future__ import annotations

@@ -1,14 +1,15 @@
 """Unit tests for the AOT executable blob cache policy (device_eval):
 compressed blob round-trip and the LRU prune rule (VERDICT r4 #8).
 
-These are pure-filesystem tests — no TPU, no compile.
+All but the last are pure-filesystem tests — no device, no compile.
 """
 import os
 import pickle
 import time
 
 from sha2cq_tpu.plonk.device_eval import (_AOT_MAGIC, _aot_blob_read,
-                                          _aot_blob_write, _aot_prune)
+                                          _aot_blob_write, _aot_load,
+                                          _aot_prune)
 
 
 def test_blob_roundtrip_compressed(tmp_path):
@@ -73,3 +74,19 @@ def test_prune_env_default(tmp_path, monkeypatch):
     monkeypatch.setenv("SHA2CQ_AOT_KEEP", "4")
     _aot_prune(d)
     assert sum(f.startswith("h_all-") for f in os.listdir(d)) == 4
+
+
+def test_load_runs_one_device_blob_in_multidevice_process(tmp_path):
+    """A blob compiled for one device must load onto one device even when
+    the process sees several (the suite runs on 8 CPU devices): loaded onto
+    all of them, its first call expects one shard per device and fails."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental.serialize_executable import serialize
+    assert len(jax.devices()) > 1
+    x = jnp.arange(8, dtype=jnp.uint32)
+    exe = jax.jit(lambda a: a * 3 + 1).lower(x).compile()
+    p = str(tmp_path / "h_all-dev.pkl")
+    _aot_blob_write(p, pickle.dumps(serialize(exe), protocol=4))
+    loaded = _aot_load(p)
+    assert loaded(x).tolist() == [3 * i + 1 for i in range(8)]

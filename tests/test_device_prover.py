@@ -1,4 +1,4 @@
-"""Device (TPU-path) prover: h evaluated on device must produce proofs that
+"""Device-path prover: h evaluated on device must produce proofs that
 verify, and byte-identical transcripts to the host path under the same rng."""
 import random
 
@@ -72,10 +72,10 @@ def test_h_vm_matches_chunk_pipeline():
 
 
 def test_h_device_mxu_proof_matches_host():
-    """MXU matmul-NTT basis conversions (ops/mxu_ntt.py) threaded through the
+    """Matmul-NTT basis conversions (ops/mxu_ntt.py) threaded through the
     device h-path must stay byte-identical to the host path.  Forced on at
     tiny k (auto only engages at k >= 12) so CI covers the production route
-    the real-SHA prover takes on the TPU."""
+    the real-SHA prover takes on the GPU."""
     K = 3
     rng, srs, t1, t2, params, configs, b0 = E._setup(K)
     circuit = E.MyCircuit(t1, t2)

@@ -73,18 +73,35 @@ def test_select_eq_iszero():
     assert D.unpack(sel, D.FR) == [0, 5, 1, 7]
 
 
-def test_pallas_mont_mul_fallback_and_correctness():
-    """pallas_mont_mul: exact vs the jnp kernel (on CPU this exercises the
-    transparent fallback; on TPU the Mosaic kernel itself)."""
+@pytest.mark.parametrize("ctx", [D.FR, D.FQ], ids=["fr", "fq"])
+def test_mont_mul_forms_bit_identical(ctx):
+    """The compact (scan) and unrolled (register) mont_mul forms compute the
+    same REDC digit sequence, so every output limb must match, including
+    broadcast operands."""
     import jax.numpy as jnp
-    from sha2cq_tpu.ops.pallas_field import pallas_mont_mul
-    p = H.FR_MOD
+    p = ctx.p
     xs = _vectors(p, 64)
-    a = jnp.tile(D.pack(xs, D.FR), (1, 8))       # n = 512 = TILE
-    b = jnp.roll(a, 3, axis=1)
-    got = pallas_mont_mul(a, b)
-    exp = _mul_fr(a, b)
-    assert bool(jnp.all(got == exp))
+    ys = list(reversed(_vectors(p, 64)))
+    a, b = D.pack(xs, ctx), D.pack(ys, ctx)
+    compact = jax.jit(lambda a, b: D._mont_mul_compact(a, b, ctx))
+    unrolled = jax.jit(lambda a, b: D._mont_mul_unrolled(a, b, ctx))
+    got_c, got_u = compact(a, b), unrolled(a, b)
+    assert bool(jnp.all(got_c == got_u))
+    assert D.unpack(got_u, ctx) == [x * y % p for x, y in zip(xs, ys)]
+    s = b[:, :1]
+    assert bool(jnp.all(compact(a, s) == unrolled(a, s)))
+
+
+@pytest.mark.parametrize("backend", ["cpu", "gpu", "rocm"])
+def test_mont_mul_form_choice_by_backend(monkeypatch, backend):
+    """mont_mul traces the compact (scan) form whatever the backend."""
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    a = D.pack([3, 5], D.FR)
+    jaxpr = str(jax.make_jaxpr(lambda x: D.mont_mul(x, x, D.FR))(a))
+    assert "scan" in jaxpr
+    compact = str(jax.make_jaxpr(
+        lambda x: D._mont_mul_compact(x, x, D.FR))(a))
+    assert jaxpr == compact
 
 
 def test_unpack_nonmont_native_branch():

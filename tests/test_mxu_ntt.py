@@ -1,4 +1,4 @@
-"""MXU matmul-NTT (ops/mxu_ntt.py) vs the host oracle.
+"""Int8 matmul NTT (ops/mxu_ntt.py) vs the host oracle.
 
 Runs with a small max_m so the digit matrices stay tiny on the CPU backend;
 covers the single-matmul base case, one- and two-level four-step recursion,
@@ -27,7 +27,7 @@ def _rand(n, seed):
     (5, 32),    # single matmul
     (8, 64),    # one four-step level
     (9, 16),    # two levels (512 = 2 * 16 * 16)
-    (10, 16),   # tiny residual -> VPU butterfly path (m = 4)
+    (10, 16),   # tiny residual -> butterfly path (m = 4)
 ])
 def test_mxu_ntt_matches_host(k, max_m):
     n = 1 << k
